@@ -1,0 +1,4 @@
+from sahara_jax.cli.main import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,6 @@
 import numpy as np
 
-from sahara_tpu import alphabet as al
+from sahara_jax import alphabet as al
 
 
 def test_d_dna5_ranks():

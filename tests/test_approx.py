@@ -5,9 +5,9 @@ FM-index; planted-read recovery as the integration oracle)."""
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.driver import search_queries
-from sahara_tpu.index.build import build_bifmindex
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.driver import search_queries
+from sahara_jax.index.build import build_bifmindex
 from tests.util import brute_approx_hits, brute_edit_hits_minimal, random_seqs
 
 SIGMA = 6  # d_dna5

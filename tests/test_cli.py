@@ -7,8 +7,8 @@ import re
 import numpy as np
 import pytest
 
-from sahara_tpu.cli.main import main
-from sahara_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
+from sahara_jax.cli.main import main
+from sahara_jax.io.fasta import FastaRecord, read_fasta, write_fasta
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ import os
 import numpy as np
 import pytest
 
-from sahara_tpu.cli.main import main
-from sahara_tpu.io.fasta import FastaRecord, write_fasta
+from sahara_jax.cli.main import main
+from sahara_jax.io.fasta import FastaRecord, write_fasta
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 REGEN = os.environ.get("SAHARA_REGEN_GOLDENS") == "1"

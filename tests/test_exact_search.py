@@ -1,9 +1,9 @@
 import numpy as np
 
-from sahara_tpu.engine.device import DeviceIndex, queries_to_device
-from sahara_tpu.engine.exact import exact_search
-from sahara_tpu.engine.locate import locate
-from sahara_tpu.index import build_fmindex
+from sahara_jax.engine.device import DeviceIndex, queries_to_device
+from sahara_jax.engine.exact import exact_search
+from sahara_jax.engine.locate import locate
+from sahara_jax.index import build_fmindex
 
 from tests.util import brute_exact_hits, random_seqs
 

@@ -1,4 +1,4 @@
-from sahara_tpu.io import FastaRecord, read_fasta, write_fasta
+from sahara_jax.io import FastaRecord, read_fasta, write_fasta
 
 
 def test_roundtrip(tmp_path):

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.locate import lf_walk
-from sahara_tpu.index.build import build_bifmindex, build_text
-from sahara_tpu.index.fmindex import load_index, save_index
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.locate import lf_walk
+from sahara_jax.index.build import build_bifmindex, build_text
+from sahara_jax.index.fmindex import load_index, save_index
 
 
 @pytest.fixture(scope="module")

@@ -9,9 +9,9 @@ short/long parts, N handling)."""
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.driver import search_queries
-from sahara_tpu.index.build import build_bifmindex
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.driver import search_queries
+from sahara_jax.index.build import build_bifmindex
 from tests.util import brute_approx_hits, brute_edit_hits_minimal
 
 CONFIGS = [
@@ -101,7 +101,7 @@ def test_engines_agree_on_enriched_genome(cfg):
     """All engines vs the brute oracle on the repeat/low-complexity/N-gap
     enriched corpus (the chr21 proxy, sim/corpus.py): satellites stress the
     SV part budget + fallback routing, N gaps stress rank-5 handling."""
-    from sahara_tpu.sim.corpus import make_genome
+    from sahara_jax.sim.corpus import make_genome
 
     seed, m, k, edit, mode = cfg
     rng = np.random.default_rng(seed)

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from sahara_tpu.index import build_bifmindex, build_fmindex, build_text, load_index, save_index
-from sahara_tpu.index.fmindex import BiFMIndex, peek_sigma
-from sahara_tpu.index.occtable import build_occ, rank_all_np, symbol_at_np
+from sahara_jax.index import build_bifmindex, build_fmindex, build_text, load_index, save_index
+from sahara_jax.index.fmindex import BiFMIndex, peek_sigma
+from sahara_jax.index.occtable import build_occ, rank_all_np, symbol_at_np
 
 from tests.util import random_seqs
 
@@ -61,8 +61,8 @@ def test_threaded_build_byte_identical():
     overlapped) without changing a single byte of the index arrays."""
     import numpy as np
 
-    from sahara_tpu.index.build import build_bifmindex
-    from sahara_tpu.index.shard import build_sharded_bifmindex
+    from sahara_jax.index.build import build_bifmindex
+    from sahara_jax.index.shard import build_sharded_bifmindex
 
     rng = np.random.default_rng(3)
     seqs = [rng.integers(1, 5, size=5000).astype(np.uint8) for _ in range(3)]

@@ -5,12 +5,12 @@ and the mesh-distributed interval search on the virtual CPU mesh."""
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.driver import search_queries, search_queries_sharded
-from sahara_tpu.engine.tape import compile_tape
-from sahara_tpu.index.build import build_bifmindex
-from sahara_tpu.index.shard import ShardedIndex, build_sharded_bifmindex, load_any_index, plan_shards, save_sharded
-from sahara_tpu.schemes import GENERATORS, expand
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.driver import search_queries, search_queries_sharded
+from sahara_jax.engine.tape import compile_tape
+from sahara_jax.index.build import build_bifmindex
+from sahara_jax.index.shard import ShardedIndex, build_sharded_bifmindex, load_any_index, plan_shards, save_sharded
+from sahara_jax.schemes import GENERATORS, expand
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +87,8 @@ def test_sharded_save_load_roundtrip(corpus, tmp_path):
 def test_distributed_interval_search_matches(corpus):
     import jax
 
-    from sahara_tpu.parallel.interval import distributed_interval_search
-    from sahara_tpu.parallel.mesh import data_mesh
+    from sahara_jax.parallel.interval import distributed_interval_search
+    from sahara_jax.parallel.mesh import data_mesh
 
     cpu = jax.devices("cpu")
     if len(cpu) < 8:
@@ -106,15 +106,17 @@ def test_distributed_interval_search_matches(corpus):
     assert _rows(got) == _rows(want)
 
 def test_sharded_swap_path_matches_resident(corpus, monkeypatch):
-    """SAHARA_HBM_BUDGET=0 forces the legacy swap path; hit sets must be
+    """A zero resident budget forces the swap path; hit sets must be
     identical to the resident-SV fast path (and to the single index)."""
+    from sahara_jax.engine import driver
+
     seqs, queries = corpus
     k = 1
     sharded = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64)
     kw = dict(k=k, generator_name="optimum", edit=True)
     resident = search_queries_sharded(sharded, queries, **kw)
     assert getattr(sharded, "_resident_devs", None) is not None, "resident path not taken"
-    monkeypatch.setenv("SAHARA_HBM_BUDGET", "0")
+    monkeypatch.setattr(driver, "_resident_budget", lambda: 0)
     sharded2 = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64)
     swapped = search_queries_sharded(sharded2, queries, **kw)
     assert getattr(sharded2, "_resident_devs", None) is None, "swap path not taken"
@@ -138,7 +140,7 @@ def test_sharded_resident_fallback_deferral(corpus):
     assert _rows(got) == _rows(want)
 
 
-def test_sharded_besthits_filters_globally(corpus):
+def test_sharded_besthits_filters_globally(corpus, monkeypatch):
     """besthits across shards: a query whose best hit lives in shard A
     must not ALSO report worse hits found in shard B — the filter must
     apply after the cross-shard merge (on both driver paths)."""
@@ -148,18 +150,13 @@ def test_sharded_besthits_filters_globally(corpus):
     want = search_queries(
         single, queries, k=k, generator_name="optimum", edit=True, mode="besthits"
     )
-    for budget in (None, "0"):
-        sharded = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64)
-        import os
+    from sahara_jax.engine import driver
 
-        if budget is None:
-            os.environ.pop("SAHARA_HBM_BUDGET", None)
-        else:
-            os.environ["SAHARA_HBM_BUDGET"] = budget
-        try:
-            got = search_queries_sharded(
-                sharded, queries, k=k, generator_name="optimum", edit=True, mode="besthits"
-            )
-        finally:
-            os.environ.pop("SAHARA_HBM_BUDGET", None)
+    for budget in (None, 0):
+        sharded = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64)
+        if budget is not None:
+            monkeypatch.setattr(driver, "_resident_budget", lambda: budget)
+        got = search_queries_sharded(
+            sharded, queries, k=k, generator_name="optimum", edit=True, mode="besthits"
+        )
         assert _rows(got) == _rows(want), f"budget={budget}"

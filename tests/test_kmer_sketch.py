@@ -4,7 +4,7 @@ CONFORMANCE.md deviation 6: the sketch is a documented re-derivation (not
 bit-compatible with ivsigma), so its correctness story is (a) differential
 tests of every selection rule against an independent brute-force second
 implementation (this file — the vectorized production code in
-sahara_tpu/kmer.py shares no code with the reference loops below), and
+sahara_jax/kmer.py shares no code with the reference loops below), and
 (b) index<->search self-consistency across ALL the reference's sigma
 buckets {3,4,5,6,16,32,64,128} (AdaptiveKmerIndex.cpp:27-41) and both
 kmer modes (winnowing + mod, kmer-index.cpp:91-115).
@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from sahara_tpu.adaptive_kmer_index import AdaptiveKmerIndex, KmerConfig, _bucket_sigma
-from sahara_tpu.kmer import compact_encoding, mod_mers, winnowing_minimizers
-from sahara_tpu.native import xxh64_batch_u64
+from sahara_jax.adaptive_kmer_index import AdaptiveKmerIndex, KmerConfig, _bucket_sigma
+from sahara_jax.kmer import compact_encoding, mod_mers, winnowing_minimizers
+from sahara_jax.native import xxh64_batch_u64
 
 _COMP = {1: 4, 2: 3, 3: 2, 4: 1, 5: 5}
 
@@ -130,7 +130,7 @@ def test_bucket_sigma_boundaries():
     assert _bucket_sigma(15) == 16
     assert _bucket_sigma(16) == 32
     assert _bucket_sigma(127) == 128
-    from sahara_tpu.utils.errors import SaharaError
+    from sahara_jax.utils.errors import SaharaError
 
     with pytest.raises(SaharaError):
         _bucket_sigma(128)
@@ -173,7 +173,7 @@ def test_kmer_cli_mod_mode_end_to_end(tmp_path, capsys):
     """mod-mer mode through the real CLI: index + search, planted reads
     recovered (kmer-index.cpp:101-104 mod path; previously only winnowing
     had CLI coverage)."""
-    from sahara_tpu.cli.main import main
+    from sahara_jax.cli.main import main
 
     rng = np.random.default_rng(77)
     chars = np.asarray(list("ACGT"))

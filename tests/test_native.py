@@ -1,6 +1,6 @@
 import numpy as np
 
-from sahara_tpu.native import get_lib, suffix_array, xxh64, xxh64_batch_u64, _suffix_array_doubling
+from sahara_jax.native import get_lib, suffix_array, xxh64, xxh64_batch_u64, _suffix_array_doubling
 
 
 def brute_sa(t: np.ndarray) -> np.ndarray:

@@ -7,8 +7,8 @@ import re
 import numpy as np
 import pytest
 
-from sahara_tpu.cli.main import main
-from sahara_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
+from sahara_jax.cli.main import main
+from sahara_jax.io.fasta import FastaRecord, read_fasta, write_fasta
 
 _COMP = bytes.maketrans(b"ACGT", b"TGCA")
 
@@ -114,9 +114,9 @@ def test_mirrored_index_matches_double_table():
     hit sets to the double-table build, at half the occ footprint."""
     import numpy as np
 
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.driver import search_queries
-    from sahara_tpu.index.build import build_bifmindex
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.driver import search_queries
+    from sahara_jax.index.build import build_bifmindex
 
     rng = np.random.default_rng(13)
     seqs = [rng.integers(1, 4, size=300).astype(np.uint8) for _ in range(2)]
@@ -150,10 +150,10 @@ def test_mirrored_index_roundtrip(tmp_path):
     """Mirrored indexes save/load without the rev table and search equal."""
     import numpy as np
 
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.driver import search_queries
-    from sahara_tpu.index.build import build_bifmindex
-    from sahara_tpu.index.fmindex import load_index, save_index
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.driver import search_queries
+    from sahara_jax.index.build import build_bifmindex
+    from sahara_jax.index.fmindex import load_index, save_index
 
     rng = np.random.default_rng(14)
     seqs = [rng.integers(1, 4, size=200).astype(np.uint8)]

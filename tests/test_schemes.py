@@ -9,7 +9,7 @@ search paths use: (0, k) for all-mode and (j, j) for besthits strata
 
 import pytest
 
-from sahara_tpu.schemes import (
+from sahara_jax.schemes import (
     GENERATORS,
     expand,
     expand_count,
@@ -18,9 +18,9 @@ from sahara_tpu.schemes import (
     is_valid,
     limit_to_hamming,
 )
-from sahara_tpu.schemes.costs import node_count, optimize_by_wnc, weighted_node_count
-from sahara_tpu.schemes.expand import part_directions
-from sahara_tpu.schemes.types import Search, covers, generate_error_configs
+from sahara_jax.schemes.costs import node_count, optimize_by_wnc, weighted_node_count
+from sahara_jax.schemes.expand import part_directions
+from sahara_jax.schemes.types import Search, covers, generate_error_configs
 
 
 ALL_NAMES = sorted(GENERATORS)
@@ -145,7 +145,7 @@ def test_optimize_by_wnc_topdown_properties():
     """--dynamic_generator path (optimizeByWNCTopDown, search.cpp:193-205):
     partition sums to the query length, keeps every part non-empty, keeps
     the scheme valid+complete, and is never worse than uniform expansion."""
-    from sahara_tpu.schemes.costs import optimize_by_wnc_topdown
+    from sahara_jax.schemes.costs import optimize_by_wnc_topdown
 
     for gen_name, k, length in [("optimum", 2, 50), ("h2-k2", 2, 100),
                                 ("pigeon", 3, 60), ("h2-k3", 3, 150)]:
@@ -163,7 +163,7 @@ def test_optimize_by_wnc_topdown_properties():
 
 
 def test_optimize_by_wnc_topdown_degenerate():
-    from sahara_tpu.schemes.costs import optimize_by_wnc_topdown
+    from sahara_jax.schemes.costs import optimize_by_wnc_topdown
 
     assert optimize_by_wnc_topdown([], 50, 5, 10**6) == []
     ss = [Search(pi=[0], l=[0], u=[0])]

@@ -5,10 +5,10 @@ and brute_approx_hits(hamming) are the spec)."""
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.seedverify import plan_parts, run_sv_search, sv_eligible
-from sahara_tpu.index.build import build_bifmindex
-from sahara_tpu.index.textstore import pack_text4, unpack_text4
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.seedverify import plan_parts, run_sv_search, sv_eligible
+from sahara_jax.index.build import build_bifmindex
+from sahara_jax.index.textstore import pack_text4, unpack_text4
 
 from tests.util import brute_approx_hits, brute_edit_hits_minimal, random_seqs
 
@@ -144,7 +144,7 @@ def test_search_queries_repeat_fallback_exact(edit):
     """Adversarial poly-A / tandem-repeat corpus through the full driver:
     the per-part occurrence budget routes saturated queries through the
     workq engine automatically; the combined hit set stays exact."""
-    from sahara_tpu.engine.driver import search_queries
+    from sahara_jax.engine.driver import search_queries
 
     rng = np.random.default_rng(5)
     unit = rng.integers(1, 5, 12).astype(np.uint8)
@@ -207,7 +207,7 @@ def test_search_queries_n_query_fallback_exact(edit):
     """Queries carrying N (rank 5) in table-covered positions are routed
     to the scheme engine (the j-mer table cannot encode them); the hit
     set stays exact."""
-    from sahara_tpu.engine.driver import search_queries
+    from sahara_jax.engine.driver import search_queries
 
     rng = np.random.default_rng(8)
     seqs = [rng.integers(1, 5, size=600).astype(np.uint8)]
@@ -270,7 +270,7 @@ def test_sv_boundary_and_sentinel():
 
 
 def test_plan_parts_e1():
-    from sahara_tpu.engine.seedverify import plan_parts_e1
+    from sahara_jax.engine.seedverify import plan_parts_e1
 
     # 36bp/k=3: exact plan needs 4 parts of 9 (< MIN_PART) -> None; e1 plan
     # is 2 parts of 18 (any <=3-error alignment leaves a part with <=1)
@@ -287,7 +287,7 @@ def test_plan_parts_e1():
 def test_sv_e1_matches_oracle(edit, m, k):
     """Scheme-seeded SV vs the brute oracle on reads too short for exact
     pigeonhole seeding."""
-    from sahara_tpu.engine.seedverify import plan_parts_e1
+    from sahara_jax.engine.seedverify import plan_parts_e1
 
     rng = np.random.default_rng(1000 + m + k + (7 if edit else 0))
     seqs = random_seqs(rng, 4, min_len=80, max_len=200, sigma=5)
@@ -339,7 +339,7 @@ def test_sv_e1_matches_oracle(edit, m, k):
 def test_sv_e1_driver_matches_workq(edit):
     """search_queries auto engine (scheme-seeded SV at 36bp/k=3) must equal
     the forced workq engine's hit rows, including N-containing queries."""
-    from sahara_tpu.engine.driver import search_queries
+    from sahara_jax.engine.driver import search_queries
 
     rng = np.random.default_rng(77)
     seqs = random_seqs(rng, 3, min_len=100, max_len=220, sigma=5)
@@ -365,8 +365,8 @@ def test_sv_e1_driver_matches_workq(edit):
 def test_sv_e1_part_cap_fallback():
     """Poly-A reads saturate the per-part budget under e1 seeding too; the
     driver must re-search them exactly through the scheme engine."""
-    from sahara_tpu.engine.driver import search_queries
-    from sahara_tpu.engine.seedverify import run_sv_search as _run
+    from sahara_jax.engine.driver import search_queries
+    from sahara_jax.engine.seedverify import run_sv_search as _run
 
     rng = np.random.default_rng(5)
     base = rng.integers(1, 5, size=1500).astype(np.uint8)

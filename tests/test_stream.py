@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from sahara_tpu.cli.main import main
-from sahara_tpu.io.fasta import (
+from sahara_jax.cli.main import main
+from sahara_jax.io.fasta import (
     FastaRecord,
     NotSimpleFasta,
     iter_fasta_seq_matrix_blocks,
@@ -62,7 +62,7 @@ def test_stream_matches_buffered(corpus, tmp_path, monkeypatch, extra):
     out_str = tmp_path / "str.txt"
     monkeypatch.setenv("SAHARA_STREAM", "1")
     # tiny block size via a monkeypatched iterator so several blocks flow
-    import sahara_tpu.io.fasta as fa
+    import sahara_jax.io.fasta as fa
 
     orig = fa.iter_fasta_seq_matrix_blocks
     monkeypatch.setattr(

@@ -4,9 +4,9 @@ same canonical output as the workq scheme engine for all/besthits modes."""
 import numpy as np
 import pytest
 
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.engine.driver import search_queries
-from sahara_tpu.index.build import build_bifmindex
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.engine.driver import search_queries
+from sahara_jax.index.build import build_bifmindex
 
 from tests.util import random_seqs
 
@@ -105,7 +105,7 @@ def test_fused_cap_retry(monkeypatch):
     """Genuinely overflow the fused path's candidate + hit capacities (a
     tandem-repeat reference makes every part interval wide) and assert the
     retry ladder converges to the two-phase path's output."""
-    from sahara_tpu.engine import driver as drv
+    from sahara_jax.engine import driver as drv
 
     rng = np.random.default_rng(5)
     unit = rng.integers(1, 5, 20).astype(np.uint8)

@@ -13,10 +13,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from sahara_tpu.engine import driver as drv
-from sahara_tpu.engine import workq
-from sahara_tpu.engine.device import DeviceIndex
-from sahara_tpu.index.build import build_bifmindex
+from sahara_jax.engine import driver as drv
+from sahara_jax.engine import workq
+from sahara_jax.engine.device import DeviceIndex
+from sahara_jax.index.build import build_bifmindex
 
 
 def _workload(seed: int = 0):
@@ -59,7 +59,7 @@ def test_hard_cap_split_is_hit_identical_on_mesh(monkeypatch):
     devices, so a skewed frontier (one device owning most live states)
     must drive the same global active-set halving — and converge to the
     single-chip hit set byte-for-byte."""
-    from sahara_tpu.parallel import data_mesh, replicate_index
+    from sahara_jax.parallel import data_mesh, replicate_index
 
     rng = np.random.default_rng(3)
     unit = rng.integers(1, 5, size=251).astype(np.uint8)
@@ -92,8 +92,8 @@ def test_hard_cap_split_is_hit_identical_on_mesh(monkeypatch):
 def test_predict_fit_chunk_shrinks_known_blowups():
     """Capacity memory from any sibling key (same workload, different nq)
     pre-sizes the dispatch width so the frontier fits under HARD_CAP."""
-    from sahara_tpu.engine.tape import compile_tape
-    from sahara_tpu.schemes import expand, get_generator
+    from sahara_jax.engine.tape import compile_tape
+    from sahara_jax.schemes import expand, get_generator
 
     index, _ = _workload()
     tape = compile_tape(expand(get_generator("optimum").generator(0, 1, 0, 0), 36))

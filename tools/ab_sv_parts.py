@@ -16,6 +16,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from sahara_jax import CACHE_DIR  # noqa: E402
+
 import numpy as np
 
 import bench
@@ -25,10 +27,10 @@ def main() -> None:
     extras = [int(x) for x in (sys.argv[1:] or ["0", "1"])]
     reps = int(os.environ.get("AB_REPS", "4"))
 
-    from sahara_tpu.alphabet import D_DNA5
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.driver import search_queries
-    from sahara_tpu.index.fmindex import load_index
+    from sahara_jax.alphabet import D_DNA5
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.driver import search_queries
+    from sahara_jax.index.fmindex import load_index
 
     ref, reads = bench.load_workload()
     n_reads = len(reads)
@@ -36,7 +38,7 @@ def main() -> None:
         s for q in reads for s in (q, D_DNA5.reverse_complement_rank(q).astype(np.uint8))
     ]
     host = load_index(os.path.join(
-        os.path.expanduser("~"), ".cache", "sahara_tpu", f"bench_index{bench.REF_MB}_v2.idx"))
+        CACHE_DIR, f"bench_index{bench.REF_MB}_v2.idx"))
     index = DeviceIndex.from_host(host)
     kw = dict(k=bench.ERRORS, generator_name=bench.GENERATOR, edit=True, mode="all",
               engine="sv", chunk=bench.CHUNK)

@@ -1,6 +1,6 @@
 """config[3] benchmark: e=3, 150bp reads vs a multi-GB interval-sharded index.
 
-BASELINE.json configs[3] ("full human genome" class): builds a 2.5GB
+The "full human genome" class: builds a 2.5GB
 synthetic repeat-structured reference into the v2 sharded container
 (threaded build), searches 150bp reads carrying exactly 3 planted errors
 (both strands, like the production CLI default), and prints one JSON line
@@ -31,7 +31,7 @@ ERRORS = 3
 N_SEQS = 4  # equal-size sequences -> equal-shape shards -> one compile set
 SHARD_MB = float(os.environ.get("SAHARA_C3_SHARD_MB", REF_GB * 1000 / 2 + 1))
 CHUNK = int(os.environ.get("SAHARA_C3_CHUNK", 16384))
-CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache", "sahara_tpu")
+from sahara_jax import CACHE_DIR  # noqa: E402
 
 
 def make_ref_seqs(rng: np.random.Generator) -> list[np.ndarray]:
@@ -79,9 +79,9 @@ def make_reads(seqs: list[np.ndarray], rng: np.random.Generator) -> np.ndarray:
 
 
 def main() -> None:
-    from sahara_tpu.alphabet import D_DNA5
-    from sahara_tpu.engine.driver import search_queries_sharded
-    from sahara_tpu.index.shard import build_sharded_bifmindex, load_any_index, save_sharded
+    from sahara_jax.alphabet import D_DNA5
+    from sahara_jax.engine.driver import search_queries_sharded
+    from sahara_jax.index.shard import build_sharded_bifmindex, load_any_index, save_sharded
 
     os.makedirs(CACHE_DIR, exist_ok=True)
     tag = f"c3_{REF_GB}gb"

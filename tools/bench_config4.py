@@ -1,5 +1,5 @@
 """configs[4] scale on available hardware: 10M reads end-to-end through the
-real CLI on one chip (BASELINE configs[4] minus the unavailable v5e-16).
+real CLI on one chip (the multi-host deployment's read volume on one host).
 
 Exercises the host path nothing else tests at scale: FASTA parse of 10M+
 records, vectorized rank/revcomp expansion to 20M strand queries, ~1,200
@@ -7,7 +7,7 @@ pipelined device chunks, the canonical merge lexsort at 10^7 rows, and the
 vectorized hit write.  Phases are timed separately; a sampled recovery
 check asserts planted reads are found.
 
-    python tools/bench_config4.py [--reads 10000000] [--out CONFIG4_r04.json]
+    python tools/bench_config4.py [--reads 10000000] [--out config4.json]
 """
 
 from __future__ import annotations
@@ -25,15 +25,15 @@ import numpy as np
 
 import bench
 
-CACHE = os.path.join(os.path.expanduser("~"), ".cache", "sahara_tpu")
+from sahara_jax import CACHE_DIR as CACHE  # noqa: E402
 _RANK_TO_CHAR = np.frombuffer(b"\x00ACGTN", dtype=np.uint8)
 
 
 def prepare(n_reads: int) -> tuple[str, str]:
     """Reference FASTA + index + read FASTA, all cached on disk."""
-    from sahara_tpu.cli.main import main
-    from sahara_tpu.io.fasta import FastaRecord, write_fasta
-    from sahara_tpu.sim.read_simulator import simulate_reads
+    from sahara_jax.cli.main import main
+    from sahara_jax.io.fasta import FastaRecord, write_fasta
+    from sahara_jax.sim.read_simulator import simulate_reads
 
     os.makedirs(CACHE, exist_ok=True)
     ref_fa = os.path.join(CACHE, "config4_ref40.fasta")
@@ -61,7 +61,7 @@ def sample_recovery(reads_fa: str, out_path: str, n_sample: int = 200) -> float:
     """Fraction of sampled planted reads whose (seqid,pos) is in the output
     (strand queryId = 2 * read index; positions may be off by <= 2 for
     edit-distance spans, so accept |delta| <= 2)."""
-    from sahara_tpu.io.fasta import read_fasta
+    from sahara_jax.io.fasta import read_fasta
 
     truth = {}
     pat = re.compile(r"seqid:(\d+), pos:(\d+)")
@@ -91,7 +91,7 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from sahara_tpu.cli.main import main as cli
+    from sahara_jax.cli.main import main as cli
 
     ref_fa, reads_fa = prepare(args.reads)
     warm_fa = os.path.join(CACHE, f"config4_reads_{args.warm_reads}.fasta")
@@ -119,7 +119,7 @@ def main() -> None:
     n_hits = sum(1 for _ in open(out_path))
     rec = sample_recovery(reads_fa, out_path)
     result = {
-        "config": "BASELINE configs[4] scale on 1 chip (10M reads, e=2, 100bp, 40MB ref)",
+        "config": "10M reads, e=2, 100bp, 40MB ref, one chip",
         "n_reads": args.reads,
         "wall_s": round(t_total, 1),
         "reads_per_second_sustained": round(args.reads / t_total, 1),

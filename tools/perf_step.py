@@ -16,6 +16,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from sahara_jax import CACHE_DIR  # noqa: E402
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,13 +49,13 @@ def scan50(body):
 
 
 def main() -> None:
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.rank import occ_row_word, rank_all_from_row
-    from sahara_tpu.index.fmindex import load_index
-    from sahara_tpu.engine.workq import _fold_rows, _fold_take, _SF_G, _SF_F, _compact_matmul
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.rank import occ_row_word, rank_all_from_row
+    from sahara_jax.index.fmindex import load_index
+    from sahara_jax.engine.workq import _fold_rows, _fold_take, _SF_G, _SF_F, _compact
 
     cap = int(sys.argv[1]) if len(sys.argv) > 1 else 57344
-    host = load_index(os.path.expanduser("~/.cache/sahara_tpu/bench_index40.0_v2.idx"))
+    host = load_index(os.path.join(CACHE_DIR, "bench_index40.0_v2.idx"))
     index = DeviceIndex.from_host(host)
     sigma, sl = index.sigma, 5
     rng = np.random.default_rng(0)
@@ -125,19 +127,18 @@ def main() -> None:
 
     timed("dedup (scatter-min+gather+cmp)", scan50(dd), pos0, par0, vec, rows=cap)
 
-    # 7. MXU compaction at e_used=11 flags
+    # 7. compaction (integer prefix sum + scatter) at e_used=11 flags
     e_used = 11
     fl0 = jnp.asarray(rng.random(cap * e_used) < 0.08)
-    tri = jnp.triu(jnp.ones((512, 512), dtype=jnp.float32))
     payload = jnp.asarray(rng.integers(0, cap * 16, size=cap * e_used).astype(np.int32))
 
     def comp(fl, pay, v):
-        sel, total = _compact_matmul(fl, pay, cap, tri)
+        sel, total = _compact(fl, pay, cap)
         return (jnp.roll(fl, 1), pay, v + sel % 3)
 
-    timed("MXU compaction (11 cols)", scan50(comp), fl0, payload, vec, rows=cap)
+    timed("compaction (11 cols)", scan50(comp), fl0, payload, vec, rows=cap)
 
-    # 8. candidate flag math + branch decode (elementwise VPU block)
+    # 8. candidate flag math + branch decode (elementwise block)
     def flags(pos, par, v):
         err = v & 3
         cnt = jnp.stack([pos + i for i in range(sl)], axis=1)
@@ -166,11 +167,11 @@ if __name__ == "__main__":
 
 def extra():
     """Combined [cap, 20] state+product gather + sym one-hot select."""
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.index.fmindex import load_index
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.index.fmindex import load_index
 
     cap = int(sys.argv[1]) if len(sys.argv) > 1 else 57344
-    host = load_index(os.path.expanduser("~/.cache/sahara_tpu/bench_index40.0_v2.idx"))
+    host = load_index(os.path.join(CACHE_DIR, "bench_index40.0_v2.idx"))
     index = DeviceIndex.from_host(host)
     sl = 5
     rng = np.random.default_rng(0)

@@ -1,7 +1,6 @@
 """Phase profile of the seed-and-verify pipeline at config[3] scale.
 
-Attributes the per-strand-visit cost (VERDICT r3: 180us at 2.5GB vs 11us
-at 40MB, unattributed) by timing each phase SYNCHRONOUSLY on a few chunks
+Attributes the per-strand-visit cost by timing each phase SYNCHRONOUSLY on a few chunks
 of one shard: seed scan, host expansion (+candidate volume), verify
 (total), and isolated sub-kernels (occ wide-row gather latency on the big
 table, lf_walk locate, window gather, banded DP) so the verify total can
@@ -24,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache", "sahara_tpu")
+from sahara_jax import CACHE_DIR  # noqa: E402
 
 
 def _block(x):
@@ -40,14 +39,14 @@ def main() -> None:
     ap.add_argument("--reads", type=int, default=1_000_000)
     args = ap.parse_args()
 
-    from sahara_tpu.alphabet import D_DNA5
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.locate import lf_walk
-    from sahara_tpu.engine.rank import occ_row_word, rank_all_from_row
-    from sahara_tpu.engine.seedverify import (
+    from sahara_jax.alphabet import D_DNA5
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.locate import lf_walk
+    from sahara_jax.engine.rank import occ_row_word, rank_all_from_row
+    from sahara_jax.engine.seedverify import (
         collect_sv_expand, dispatch_sv, dispatch_sv_verify, collect_sv, plan_parts,
     )
-    from sahara_tpu.index.shard import load_any_index
+    from sahara_jax.index.shard import load_any_index
 
     idx_path = os.path.join(CACHE_DIR, f"c3_{args.gb}gb.idx")
     reads_path = os.path.join(CACHE_DIR, f"c3_{args.gb}gb_reads_{args.reads}.npy")
@@ -138,7 +137,7 @@ def main() -> None:
 
         _block(just_locate(dev, rr, vv))
         sub["locate_s"] = min(_t(just_locate, dev, rr, vv) for _ in range(3))
-        from sahara_tpu.engine.seedverify import _gather_windows
+        from sahara_jax.engine.seedverify import _gather_windows
 
         base = jnp.asarray(rng.integers(0, dev.n - 200, size=len(rr)).astype(np.int32))
         wlen = -(-(m + 3 * k + 1) // 8) * 8

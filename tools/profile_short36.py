@@ -1,4 +1,4 @@
-"""Attribute the short36/e3 cliff (VERDICT r4 #3): phase timing of the
+"""Attribute the short36/e3 cliff: phase timing of the
 scheme-seeded (e1) seed-and-verify path at bench shapes.
 
 Runs ONE 16384-query chunk of 36bp/k=3 queries through the two-phase
@@ -18,6 +18,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from sahara_jax import CACHE_DIR  # noqa: E402
+
 import numpy as np
 
 import bench
@@ -29,16 +31,16 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
-    from sahara_tpu.alphabet import D_DNA5
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.seedverify import (
+    from sahara_jax.alphabet import D_DNA5
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.seedverify import (
         collect_sv, collect_sv_expand, dispatch_sv, dispatch_sv_verify,
     )
-    from sahara_tpu.index.build import build_bifmindex
-    from sahara_tpu.index.fmindex import load_index, save_index
-    from sahara_tpu.sim.read_simulator import simulate_reads
+    from sahara_jax.index.build import build_bifmindex
+    from sahara_jax.index.fmindex import load_index, save_index
+    from sahara_jax.sim.read_simulator import simulate_reads
 
-    path = os.path.join(os.path.expanduser("~"), ".cache", "sahara_tpu",
+    path = os.path.join(CACHE_DIR,
                         f"bench_index{bench.REF_MB}_v2.idx")
     ref, _ = bench.load_workload()
     if os.path.exists(path):

@@ -19,6 +19,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from sahara_jax import CACHE_DIR  # noqa: E402
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,11 +39,11 @@ def best_of(fn, n=4):
 
 
 def main() -> None:
-    from sahara_tpu.alphabet import D_DNA5
-    from sahara_tpu.engine.device import DeviceIndex
-    from sahara_tpu.engine.driver import search_queries
-    from sahara_tpu.engine.locate import lf_walk_packed
-    from sahara_tpu.engine.seedverify import (
+    from sahara_jax.alphabet import D_DNA5
+    from sahara_jax.engine.device import DeviceIndex
+    from sahara_jax.engine.driver import search_queries
+    from sahara_jax.engine.locate import lf_walk_packed
+    from sahara_jax.engine.seedverify import (
         collect_sv,
         collect_sv_expand,
         dispatch_sv,
@@ -50,10 +52,10 @@ def main() -> None:
         plan_parts,
         seed_parts,
     )
-    from sahara_tpu.index.fmindex import load_index
+    from sahara_jax.index.fmindex import load_index
 
     ref, reads = bench.load_workload()
-    host = load_index(os.path.expanduser(f"~/.cache/sahara_tpu/bench_index{bench.REF_MB}_v2.idx"))
+    host = load_index(os.path.join(CACHE_DIR, f"bench_index{bench.REF_MB}_v2.idx"))
     index = DeviceIndex.from_host(host)
     both = [s for q in reads for s in (q, D_DNA5.reverse_complement_rank(q).astype(np.uint8))]
     n_reads = len(reads)
